@@ -8,7 +8,7 @@ bench quantifies both sides at reference scale (balanced n=1824,
 F=10010): wall time of the fused 1000-epoch run and the accuracy delta
 vs the capped run.
 
-Run from the repo root on the TPU:  python benchmarks/online_learning_bench.py
+Run from the repo root on the GPU:  python benchmarks/online_learning_bench.py
 Prints one JSON line.
 """
 
@@ -21,15 +21,9 @@ import numpy as np
 def main():
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/radarml_jaxcache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from radarml_tpu.apps.common_cli import enable_compile_cache
 
-    from radarml_tpu.apps.common_cli import warm_transfers
-
-    warm_transfers()
+    enable_compile_cache()
 
     from radarml_tpu.data.balance import balance_classes
     from radarml_tpu.data.labels import LabelEncoder

@@ -24,7 +24,7 @@ test accuracy is computed once per variant for the report. Exact same
 dataset/split as quality_report.py (n=900, seed=7, hardness=0.5).
 
 Usage: python benchmarks/sgd_quality_probe.py [--cpu] [--fast]
-Writes one JSON line to stdout and benchmarks/SGD_QUALITY.json.
+Writes one JSON line to stdout and the full record to --out.
 """
 
 from __future__ import annotations
@@ -51,8 +51,7 @@ def main():
                     help="also run the SGD-vs-SVC hardness sweep "
                          "(4 extra datasets; locates the crossover)")
     ap.add_argument("--out", type=str,
-                    default=os.path.join(os.path.dirname(__file__),
-                                         "SGD_QUALITY.json"))
+                    default="chiprun_out/sgd_quality.json")
     args = ap.parse_args()
 
     import jax
@@ -60,10 +59,9 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
-    from radarml_tpu.apps.common_cli import enable_compile_cache, warm_transfers
+    from radarml_tpu.apps.common_cli import enable_compile_cache
 
     enable_compile_cache()
-    warm_transfers()
 
     from radarml_tpu.core.arena import RADAR_MAX
     from radarml_tpu.data.labels import LabelEncoder
@@ -261,6 +259,7 @@ def main():
             key=lambda k: results[k]["val"],
         ),
     }
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(record, f, indent=1)
     print(json.dumps(record))

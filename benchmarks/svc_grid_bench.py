@@ -43,10 +43,9 @@ def main():
 
     import jax
 
-    from radarml_tpu.apps.common_cli import enable_compile_cache, warm_transfers
+    from radarml_tpu.apps.common_cli import enable_compile_cache
 
     enable_compile_cache()
-    warm_transfers()
 
     from radarml_tpu.data.labels import LabelEncoder
     from radarml_tpu.data.synthetic import make_dataset

@@ -1,4 +1,4 @@
-"""radarml_tpu — a TPU-native radar perception framework.
+"""radarml_tpu — a JAX radar perception framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 goruck/radar-ml (reference mounted at /root/reference): a Walabot-style

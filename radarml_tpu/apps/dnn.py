@@ -9,7 +9,7 @@ retention. Saves the best parameters + label classes to
 
 Extras over the reference: `--synthetic N` generates data when no
 pickles exist; `--mesh N` shards the batch over an N-device mesh
-(data parallelism via pjit, the TPU scale-out path).
+(data parallelism via pjit, the multi-device scale-out path).
 """
 
 from __future__ import annotations
@@ -23,9 +23,11 @@ import numpy as np
 
 from radarml_tpu.apps.common_cli import (
     add_common_flags,
+    require_flax,
     setup_logging,
-    warm_transfers,
 )
+
+require_flax("radarml-dnn")
 from radarml_tpu.data.labels import filter_samples
 from radarml_tpu.data.store import load_datasets
 from radarml_tpu.models.cnn import RESCALE, MultiViewCNN
@@ -69,7 +71,6 @@ def main(argv=None) -> dict:
     os.makedirs(args.results_dir, exist_ok=True)
     setup_logging(os.path.join(args.results_dir, "train.log"),
                   args.logging_level)
-    warm_transfers()
 
     if not args.datasets and args.synthetic:
         from radarml_tpu.data.synthetic import make_dataset

@@ -23,7 +23,6 @@ from radarml_tpu.apps.common_cli import (
     load_model,
     parse_arena,
     setup_logging,
-    warm_transfers,
 )
 from radarml_tpu.core.arena import DEFAULT_ARENA
 from radarml_tpu.models.pipeline import RadarPredictor, UNKNOWN
@@ -48,18 +47,16 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16", "uint8", "int8"],
                    help="device dtype of the scan stream; bfloat16/uint8/"
                         "int8 are lossless for 8-bit radar data and cut "
-                        "host-link + HBM traffic 2x/4x/4x (int8 scores "
-                        "via quantized s8 MXU templates, the fastest "
-                        "measured path; uint8/int8 truncate non-integer "
-                        "cubes)")
+                        "host-link and device-memory traffic 2x/4x/4x "
+                        "(int8 scores via quantized s8 templates; "
+                        "uint8/int8 truncate non-integer cubes)")
     p.add_argument("--mode", type=str, default="fast",
                    choices=["exact", "fast", "fused"],
                    help="scoring path (identical detections; fast is "
-                        "strictly faster than exact; fused is the "
-                        "one-HBM-pass int8 kernel, fastest at bulk — "
-                        "batches pad to 128 scans, so pair it with "
-                        "--max_batch 128+; the dominated bf16 Pallas "
-                        "kernel is library/bench-only)")
+                        "strictly faster than exact; fused is fast+int8 "
+                        "with the three table contractions in one pass "
+                        "over each cube, a Pallas kernel compiled "
+                        "through Triton for the GPU)")
     p.add_argument("--duration", type=float, default=10.0,
                    help="seconds to serve (0 = until interrupted)")
     p.add_argument("--max_batch", type=int, default=64)
@@ -112,24 +109,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "seconds and swap the predictor in-place when "
                         "it changes (0 = off); pairs with "
                         "train --online_learn rewriting the artifact")
-    p.add_argument("--no_mosaic_gate", dest="mosaic_gate",
-                   action="store_false",
-                   help="skip the startup child-process probe of the "
-                        "fused Pallas kernel (the probe prevents a "
-                        "Mosaic hard-abort from crash-looping the "
-                        "service; only relevant with --mode fused on "
-                        "TPU)")
-    p.add_argument("--fused_quant", type=str, default="split",
-                   choices=["split", "single"],
-                   help="fused-mode template quantization: 'split' "
-                        "(default) keeps decisions bit-identical to "
-                        "fast+int8; 'single' halves the kernel's weight "
-                        "rows/stream (one MXU tile pass per step) at a "
-                        "coarser template error (~1e-3 on probabilities "
-                        "vs split's ~1e-5 — RadarPredictor.fused_quant). "
-                        "Single-level bulk throughput peaks at batch "
-                        "8192 where the split default prefers 4096 "
-                        "(benchmarks/ZC_PROBE_C1.json)")
     add_scan_arena_flag(p)
     add_driver_flags(p)
     add_common_flags(p)
@@ -139,7 +118,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     setup_logging(None, args.logging_level)
-    warm_transfers()
 
     if args.export_serving and args.serving_artifact:
         raise SystemExit(
@@ -151,74 +129,6 @@ def main(argv=None) -> dict:
     # the training arena (reference predict.py:34-54). AOT artifacts
     # bake their own scan grid and ignore this flag.
     scan_arena = parse_arena(args.scan_arena)
-
-    # Mosaic can reject a Pallas program with a hard abort that would
-    # otherwise crash-loop the service at its first batch. Probe the
-    # fused kernel once in a child process (utils/mosaic_gate) and fall
-    # back to the fastest 3-read path if the kernel is rejected — the
-    # fallback is transparent to clients (same cube wire format,
-    # identical decisions: fast+int8 shares the quantized templates).
-    gate_fallback = {}
-
-    def fused_mode_and_dtype():
-        if args.mode != "fused" or not args.mosaic_gate:
-            return args.mode, args.cube_dtype, None
-        if "mode" not in gate_fallback:  # gate once, not per hot-reload
-            import jax
-
-            from radarml_tpu.utils.mosaic_gate import (
-                gate_fused_variants,
-                resolve_tail,
-                tail_spec,
-            )
-
-            tail = RadarPredictor.__dataclass_fields__["fused_tail"].default
-            # The single-level program (half the stacked rows) gates
-            # under its own spec name — a different Mosaic program
-            # (tail_spec single-sources the mapping).
-            tail = tail_spec(tail, args.fused_quant)
-            # Probe the exact programs this service will compile: the
-            # kernel geometry keys on the scan arena, and the Mosaic
-            # program on the LANE-PADDED batch — warmup compiles every
-            # power-of-two bucket plus the loop's max_batch, and the
-            # combo kernel's program (auto_z_chunk) differs per padded
-            # batch, so gate each distinct padded shape rather than
-            # only the largest (an abort at an ungated bucket would
-            # SIGABRT the service at startup, bypassing the fallback).
-            bs = max(int(args.grpc_batch_size), 1)
-            served = {1, bs, int(args.max_batch)} | {
-                1 << i for i in range(bs.bit_length()) if (1 << i) < bs
-            }
-            padded = sorted({-(-b // 128) * 128 for b in served})
-            ok, zc = (True, None)
-            if jax.default_backend() == "tpu":
-                ok, zc = resolve_tail(
-                    gate_fused_variants(
-                        (tail,),
-                        batch=padded,
-                        arena=args.scan_arena,
-                        log=logger.warning,
-                    ),
-                    tail,
-                )
-            if not ok:
-                logger.warning(
-                    "fused kernel (tail=%s) rejected by Mosaic on this "
-                    "backend; serving falls back to mode=fast "
-                    "cube_dtype=int8 (identical decisions, ~0.6x bulk "
-                    "throughput)",
-                    tail,
-                )
-                gate_fallback["mode"] = ("fast", "int8", None)
-            else:
-                if zc is not None:
-                    logger.warning(
-                        "fused combo kernel gated at z_chunk=%d "
-                        "(fallback ladder; auto rule rejected on this "
-                        "backend)", zc,
-                    )
-                gate_fallback["mode"] = (args.mode, args.cube_dtype, zc)
-        return gate_fallback["mode"]
 
     def build_predictor():
         if args.serving_artifact:
@@ -241,13 +151,11 @@ def main(argv=None) -> dict:
                 )
             return p
         model, calib = load_model(args.svm_model)
-        mode, cube_dtype, zc = fused_mode_and_dtype()
         return RadarPredictor(
             train_arena=DEFAULT_ARENA, scan_arena=scan_arena,
             model=model, calibration=calib,
-            min_proba=args.min_proba, mode=mode,
-            cube_dtype=cube_dtype, fused_z_chunk=zc,
-            fused_quant=args.fused_quant if mode == "fused" else "split",
+            min_proba=args.min_proba, mode=args.mode,
+            cube_dtype=args.cube_dtype,
         )
 
     predictor = build_predictor()
@@ -315,22 +223,17 @@ def main(argv=None) -> dict:
     if args.export_serving:
         from radarml_tpu.serving import export_predictor
 
-        # Key the export on the predictor's EFFECTIVE mode — the
-        # mosaic gate may have replaced a rejected fused kernel with
-        # fast+int8, which supports symbolic batch and multi-platform
-        # lowering again.
-        eff_fused = getattr(predictor, "mode", None) == "fused"
+        fused = predictor.mode == "fused"
         export_predictor(
             predictor, args.export_serving,
-            # fused mode is a Mosaic kernel: it only lowers for the
-            # backend it was built against (interpret on CPU, Mosaic
-            # on TPU), so export for the current backend only — a
-            # multi-platform lowering would fail on TPU and silently
-            # embed the slow interpreted kernel on CPU.
-            platforms=(None if eff_fused else ("tpu", "cpu")),
-            # fused exports bake a static batch (packed wire layout);
-            # the service scores in --max_batch chunks, so bake that.
-            batch=(args.max_batch if eff_fused else None),
+            # The fused kernel lowers for the backend it was built for
+            # only (Triton on the GPU), so it exports for the current
+            # backend; every other mode is plain XLA and exports for
+            # both the GPU and the CPU.
+            platforms=(None if fused else ("cuda", "cpu")),
+            # the kernel's grid is the scan batch, so fused exports bake
+            # a static batch: the service scores in --max_batch chunks.
+            batch=(args.max_batch if fused else None),
         )
         return {"exported": args.export_serving}
 

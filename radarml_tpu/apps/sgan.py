@@ -18,9 +18,11 @@ import os
 
 from radarml_tpu.apps.common_cli import (
     add_common_flags,
+    require_flax,
     setup_logging,
-    warm_transfers,
 )
+
+require_flax("radarml-sgan")
 from radarml_tpu.data.labels import filter_samples
 from radarml_tpu.data.preprocess import preprocess_multiview
 from radarml_tpu.data.store import load_datasets_with_sup_mask
@@ -58,7 +60,6 @@ def main(argv=None) -> dict:
     os.makedirs(args.results_dir, exist_ok=True)
     setup_logging(os.path.join(args.results_dir, "train.log"),
                   args.logging_level)
-    warm_transfers()
 
     if not args.datasets and args.synthetic:
         from radarml_tpu.data.synthetic import make_dataset

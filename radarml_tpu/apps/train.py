@@ -31,7 +31,6 @@ from radarml_tpu.apps.common_cli import (
     save_label_encoder,
     save_model,
     setup_logging,
-    warm_transfers,
 )
 from radarml_tpu.core.arena import RADAR_MAX
 from radarml_tpu.data.labels import LabelEncoder, filter_samples
@@ -89,7 +88,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="projection mask (xz, yz, xy)")
     p.add_argument("--svm_cm", type=str,
                    default="train-results/svm_cm.png",
-                   help="path of output confusion matrix png")
+                   help="path of output confusion matrix png "
+                        "(\"\" = no plot, and no matplotlib)")
     p.add_argument("--svm_model", type=str,
                    default="train-results/svm_radar_classifier.pickle",
                    help="path of output svm model")
@@ -135,7 +135,6 @@ def _load_or_synthesize(args):
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     setup_logging(args.log_file, args.logging_level)
-    warm_transfers()
 
     data = _load_or_synthesize(args)
     samples, labels = filter_samples(
@@ -172,7 +171,7 @@ def main(argv=None) -> dict:
         result = _fit_svc(args, proj_mask, X_train, y_train)
     logger.info("Fit completed in %.1fs", time.perf_counter() - t0)
 
-    # device=True: feature matrices stay on the chip end-to-end; only
+    # device=True: feature matrices stay on the device end-to-end; only
     # small probabilities/predictions return to host.
     X_val_fv = (
         process_samples(X_val, proj_mask=proj_mask, device=True)
@@ -232,9 +231,11 @@ def main(argv=None) -> dict:
         )
 
     logger.info("Evaluating final classifier on test set.")
-    os.makedirs(os.path.dirname(args.svm_cm) or ".", exist_ok=True)
+    if args.svm_cm:
+        os.makedirs(os.path.dirname(args.svm_cm) or ".", exist_ok=True)
     metrics = evaluate_model(
-        lambda _: y_pred, None, y_test, class_names, cm_path=args.svm_cm
+        lambda _: y_pred, None, y_test, class_names,
+        cm_path=args.svm_cm or None,
     )
     logger.info("Saving svm model to: %s.", args.svm_model)
 
@@ -247,7 +248,7 @@ def main(argv=None) -> dict:
 
 
 def _fit_sgd(args, proj_mask, X_train, y_train, X_test, y_test) -> dict:
-    """Reference sgd_fit flow (train.py:324-440) on the TPU stack."""
+    """Reference sgd_fit flow (train.py:324-440) on the JAX stack."""
     import jax
 
     from radarml_tpu.models.linear import (

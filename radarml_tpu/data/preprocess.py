@@ -3,7 +3,7 @@
 Re-design of the reference's `preprocess_data` (dnn.py:185-277 and the
 128×128 SGAN variant sgan.py:617-727): scale [0, RADAR_MAX] → [-1, 1],
 optionally augment, bicubic-resize every projection to a common square
-(PIL-parity matrices on the MXU instead of a per-sample PIL loop),
+(PIL-parity matrices as matmuls instead of a per-sample PIL loop),
 stack to (N, H, W, 3) with channel order (xz, yz, xy), shuffle with the
 seeded generator, and split.
 """

@@ -7,7 +7,7 @@ the ring-buffer stream to the RadarDriver session protocol.
 
 The native source produces scans on its own thread at sensor cadence
 (newest-wins when the consumer lags, as real hardware does), which
-makes it the ingest half of the throughput benchmark: the TPU consumes
+makes it the ingest half of the throughput benchmark: the GPU consumes
 batches while C++ fills the next ones.
 """
 

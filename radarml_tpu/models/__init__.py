@@ -27,15 +27,29 @@ from radarml_tpu.models.svc import (
     predict as svc_predict,
     predict_proba as svc_predict_proba,
 )
-from radarml_tpu.models.cnn import MultiViewCNN, ViewBranch
-from radarml_tpu.models.sgan import (
-    LATENT_DIM,
-    Discriminator,
-    Generator,
-    c_head,
-    custom_activation,
-    d_head,
-)
+
+# The neural families need flax; they import on first use so the
+# linear/SVC main path runs with JAX, numpy, scipy and optax alone.
+_LAZY = {
+    "MultiViewCNN": "cnn",
+    "ViewBranch": "cnn",
+    "LATENT_DIM": "sgan",
+    "Discriminator": "sgan",
+    "Generator": "sgan",
+    "c_head": "sgan",
+    "custom_activation": "sgan",
+    "d_head": "sgan",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        mod = importlib.import_module(f"radarml_tpu.models.{_LAZY[name]}")
+        return getattr(mod, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "SVCConfig",

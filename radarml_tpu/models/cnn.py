@@ -10,7 +10,7 @@ weights (dnn.py:89-90, 373-381).
 Each branch has its own independent 64/32 filter banks, so the XLA
 formulation is three convolutions over (B, H, W, 1) channel slices of
 the stacked input; XLA fuses the elementwise chains and maps the convs
-onto the MXU. Inputs are expected in [-1, 1] at RESCALE (80×80)
+onto the matrix units. Inputs are expected in [-1, 1] at RESCALE (80×80)
 resolution — see data/preprocess.py.
 """
 

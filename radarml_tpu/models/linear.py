@@ -1,8 +1,8 @@
 """Linear classifier family: scoring, calibration, and SGD training.
 
-TPU-native re-design of the reference's SGD/logistic path
+JAX re-design of the reference's SGD/logistic path
 (train.py:324-440, predict.py:56-70): scoring is one batched matmul on
-the MXU; probability calibration is Platt sigmoid scaling; training is
+the matrix units; probability calibration is Platt sigmoid scaling; training is
 a jitted per-sample SGD scan with sklearn-compatible dynamics (optimal
 learning-rate schedule, L1/L2/elasticnet penalties, optional averaging,
 one-vs-all reduction) so hyperparameters transfer from the reference's
@@ -43,8 +43,8 @@ class SigmoidCalibration(NamedTuple):
 def decision_function(model: LinearModel, X: jax.Array) -> jax.Array:
     """(N, F) → (N, C) margins. The serving hot path: a single matmul.
 
-    Runs at HIGHEST precision so TPU float32 (not bf16-pass) matmuls
-    keep scoring bit-comparable with the reference; the classes axis is
+    Runs at HIGHEST precision so float32 matmuls (not TF32) keep
+    scoring bit-comparable with the reference; the classes axis is
     tiny, so this costs nothing.
     """
     return (
@@ -274,7 +274,7 @@ def _make_epoch_fn(penalty: str, average: bool, n_classes: int):
     """Build a jitted one-epoch (full pass, per-sample updates) function.
 
     One-vs-all: every binary problem consumes the same sample stream in
-    the same order, vectorized across the class axis — the TPU-friendly
+    the same order, vectorized across the class axis — the accelerator-friendly
     layout for what sklearn runs as C sequential binary fits.
 
     alpha/l1_ratio/t0 are *traced* scalars, so one compiled program
@@ -312,7 +312,10 @@ def _make_sample_update(penalty: str, average: bool, n_classes: int):
                 y_ova = jnp.where(jnp.arange(n_ova) == y, 1.0, -1.0)
             eta = 1.0 / (alpha * state.t)
 
-            margin = (state.coef @ x + state.intercept) * y_ova  # (C,)
+            margin = (
+                jnp.dot(state.coef, x, precision=jax.lax.Precision.HIGHEST)
+                + state.intercept
+            ) * y_ova  # (C,)
             # log-loss gradient wrt margin: -y / (1 + exp(margin))
             g = -y_ova / (1.0 + jnp.exp(jnp.clip(margin, -30.0, 30.0)))
 
@@ -438,7 +441,7 @@ def sgd_fit_many(
 
     All candidates sharing (penalty, average) train in one device
     program with a leading candidate axis on the state: where sklearn's
-    GridSearchCV runs n_candidates × n_folds sequential fits, the MXU
+    GridSearchCV runs n_candidates × n_folds sequential fits, the matrix units
     sweeps the whole candidate batch per sample step. Identical
     math/per-candidate results to sequential `sgd_fit` (same seed →
     same shuffles).
@@ -619,7 +622,10 @@ def _make_epoch_loss_fn(penalty: str, average: bool, n_classes: int):
                 y_ova = jnp.where(yv == 1, 1.0, -1.0)[None]
             else:
                 y_ova = jnp.where(jnp.arange(n_ova) == yv, 1.0, -1.0)
-            margin = (st.coef @ x + st.intercept) * y_ova
+            margin = (
+                jnp.dot(st.coef, x, precision=jax.lax.Precision.HIGHEST)
+                + st.intercept
+            ) * y_ova
             sumloss = sumloss + jnp.sum(jax.nn.softplus(-margin))
             st, _ = update(st, xy)
             return (st, sumloss), None

@@ -1,6 +1,6 @@
-"""Kernel SVM (SVC) family: MXU scoring + a jitted SMO dual solver.
+"""Kernel SVM (SVC) family: matmul scoring + a jitted SMO dual solver.
 
-TPU-native re-design of the reference's `svm.SVC(probability=True,
+JAX re-design of the reference's `svm.SVC(probability=True,
 class_weight='balanced')` path (reference train.py:442-545,
 predict.py:56-70). Nothing here wraps libsvm; the pieces are:
 
@@ -56,17 +56,11 @@ __all__ = [
 def kernel_matrix(
     X: jax.Array, Y: jax.Array, kind: str, gamma: float
 ) -> jax.Array:
-    """K(X, Y): (n, m) Gram matrix on the MXU.
+    """K(X, Y): (n, m) Gram matrix, true float32 (Precision.HIGHEST).
 
-    On TPU the RBF case routes through the fused Pallas kernel
-    (ops/pallas_rbf: matmul + distance expansion + exp in one VMEM
-    pass — ~8× the separate-stage XLA path at serving shapes and
-    bit-identical); elsewhere the XLA formulation below runs.
+    XLA fuses the distance expansion and the `exp` into elementwise
+    epilogues around the GEMM.
     """
-    if kind == "rbf" and jax.default_backend() == "tpu":
-        from radarml_tpu.ops.pallas_rbf import rbf_gram
-
-        return rbf_gram(X, Y, gamma)
     p = jax.lax.Precision.HIGHEST
     G = jnp.einsum("nf,mf->nm", X, Y, precision=p)
     if kind == "linear":

@@ -5,8 +5,6 @@ from radarml_tpu.ops.resample import (
     zoom_output_size,
 )
 from radarml_tpu.ops.features import FeatureSpec, make_feature_fn, process_samples, predict_zoom
-from radarml_tpu.ops.pallas_score import fused_native_score
-from radarml_tpu.ops.pallas_rbf import rbf_gram
 from radarml_tpu.ops.augment import (
     add_noise,
     augment_multiview,
@@ -22,8 +20,6 @@ from radarml_tpu.ops.augment import (
 )
 
 __all__ = [
-    "fused_native_score",
-    "rbf_gram",
     "add_noise",
     "augment_multiview",
     "augment_samples",

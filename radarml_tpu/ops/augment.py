@@ -1,6 +1,6 @@
 """Batched data augmentation: rotation, clipped zoom, sparse noise.
 
-TPU-native re-design of the reference's two augmentation stacks — the
+JAX re-design of the reference's two augmentation stacks — the
 SVM-path `DataGenerator.augment` (reference train.py:85-213: per-sample
 scipy `ndimage.rotate`, constant-size "clipped zoom", single-draw
 sparse Gaussian noise, all clamped to [0, 1]) and the DNN/SGAN-path
@@ -20,7 +20,7 @@ Design (not a port):
   is a linear separable operator `out = A @ img @ B.T`. So the zoom
   range is quantized to a palette of K factors, the (h, h) and (w, w)
   operators are precomputed on the host, and a batch applies per-sample
-  gathered operators as two MXU matmuls. K=64 over a ±0.3 range spaces
+  gathered operators as two matmuls. K=64 over a ±0.3 range spaces
   factors ~1% apart — far below augmentation noise.
 * **Noise** follows the reference exactly: a *single* scalar normal
   draw per plane, added to nonzero entries only (SVM path,

@@ -1,6 +1,6 @@
 """Batched feature-vector construction from radar projections.
 
-TPU-native equivalent of the reference's `common.process_samples`
+JAX equivalent of the reference's `common.process_samples`
 (reference common.py:123-149): select the projections named by the
 mask, zoom each to the training arena with the exact ndimage cubic
 B-spline semantics, flatten, concatenate (xz | yz | xy order), and
@@ -8,7 +8,7 @@ optionally scale to [0, 1] by RADAR_MAX.
 
 Where the reference loops samples in Python and calls scipy per plane,
 this builds the interpolation matrices once (see ops/resample.py) and
-runs the whole batch as three MXU matmul pairs + one concat inside a
+runs the whole batch as three matmul pairs + one concat inside a
 single jitted program.
 """
 

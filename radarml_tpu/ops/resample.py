@@ -1,12 +1,12 @@
-"""Exact separable resampling as precomputed matrices → MXU matmuls.
+"""Exact separable resampling as precomputed matrices → matmuls.
 
 The reference preprocesses every radar projection on the host CPU with
 two different resamplers: `scipy.ndimage.zoom` (cubic B-spline with
 prefilter; reference common.py:143, train.py:120) and PIL's BICUBIC
 `Image.resize` (reference dnn.py:243-245, sgan.py:679-681). Both are
-*linear* and *separable* operators on a fixed grid, so the TPU-native
+*linear* and *separable* operators on a fixed grid, so the JAX
 formulation computes the 1-D interpolation matrices once on the host
-and applies them as batched matmuls on the MXU:
+and applies them as batched matmuls:
 
     out[b] = R @ img[b] @ C.T
 
@@ -167,7 +167,7 @@ def bicubic_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
 
 
 # --------------------------------------------------------------------------
-# Batched application (MXU)
+# Batched application
 # --------------------------------------------------------------------------
 
 def spline_zoom_pair(
@@ -200,7 +200,7 @@ def resample2d(
     col_mat: jax.Array,
     precision: str = "highest",
 ) -> jax.Array:
-    """Apply a separable resample to a batch of planes on the MXU.
+    """Apply a separable resample to a batch of planes as matmuls.
 
     Args:
         batch: (..., H, W) array of planes.

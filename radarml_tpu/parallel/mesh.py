@@ -2,7 +2,7 @@
 
 The reference is a single-process Raspberry Pi program with no
 distribution at all (SURVEY.md §2.3); this module is the greenfield
-scale-out layer the TPU re-design adds: a named mesh, batch-DP
+scale-out layer the JAX re-design adds: a named mesh, batch-DP
 shardings for training and batched inference (samples are independent
 — the natural parallel axis of this workload), and replicated params
 with XLA-inserted collectives over ICI.
@@ -12,7 +12,7 @@ shape for future model axes so call sites don't change when a 'model'
 axis appears.
 
 Multi-process / multi-slice (DCN) support: `init_distributed` wraps
-`jax.distributed.initialize` so several host processes (one per TPU
+`jax.distributed.initialize` so several host processes (one per GPU
 slice or VM) form one global runtime — `jax.devices()` then spans all
 processes, `make_mesh` builds a global mesh over it, and XLA routes
 the DP all-reduce over ICI within a slice and DCN across slices with
@@ -41,10 +41,9 @@ def init_distributed(
 ) -> None:
     """Join this host process to the global (DCN) JAX runtime.
 
-    Call once per process before any device query. On cloud TPU pods
-    the arguments auto-detect from the environment (pass nothing); for
-    explicit clusters give the process-0 address, world size, and this
-    process's rank. Idempotent: a second call is a no-op.
+    Call once per process before any device query. Nothing tells JAX
+    of a GPU cluster, so give the process-0 address, world size, and
+    this process's rank. Idempotent: a second call is a no-op.
     """
     # Idempotence check that must NOT touch the backend (jax.devices/
     # process_count would initialize XLA, after which distributed

@@ -2,7 +2,7 @@
 
 The reference deploys by unpickling an sklearn estimator into the same
 Python code that trained it (reference predict.py:224-227). For
-production TPU serving we additionally support exporting the ENTIRE
+production serving we additionally support exporting the ENTIRE
 jitted predict program — slicing, zoom, feature build, calibrated
 scoring, thresholding — as one portable `jax.export` artifact:
 
@@ -12,7 +12,10 @@ scoring, thresholding — as one portable `jax.export` artifact:
   radarml_tpu model code — the weights are constants folded into the
   program (a serving host needs only jax + this loader);
 * the StableHLO payload is versioned and platform-checked by jax.export
-  itself, and round-trips bit-identically (tests/test_export.py).
+  itself, and round-trips bit-identically (tests/test_export.py);
+* the metadata records the exporting jax/jaxlib versions. A `fused`
+  artifact carries a Triton kernel, which jax.export does not promise
+  to load elsewhere, so it loads only under the versions that made it.
 
 `apps.serve --export_serving/--serving_artifact` wire this into the
 streaming service.
@@ -30,13 +33,117 @@ from typing import Callable, Optional, Sequence, Tuple
 logger = logging.getLogger(__name__)
 
 FORMAT_V1 = "radarml_tpu.serving_export.v1"  # legacy pickle container
-FORMAT = "radarml_tpu.serving_export.v2"
-# v2 container: MAGIC, one JSON metadata line, then the raw serialized
-# StableHLO blob. No unpickler runs on load, so a ModelReloader
-# watching the path cannot be turned into code execution by whoever
-# can write it (the blob itself is versioned/platform-checked by
-# jax.export on deserialize).
+FORMAT_V2 = "radarml_tpu.serving_export.v2"  # jax.export flatbuffer blob
+FORMAT = "radarml_tpu.serving_export.v3"
+# v3 container: MAGIC, one JSON metadata line (including the exported
+# program's signature), then the portable StableHLO bytes. No unpickler
+# runs on load, so a ModelReloader watching the path cannot be turned
+# into code execution by whoever can write it, and nothing beyond JAX
+# is needed: jax.export's own serializer needs the `flatbuffers`
+# package, which a serving host need not have (v2 artifacts still load
+# where it is installed).
 MAGIC = b"RMLTPU-SERVING\n"
+# The jax.export.Exported fields the v3 loader fills (`_exported`). A
+# JAX whose Exported has other fields fails the load with a clear error
+# (and tests/test_export.py fails), not a mis-built program.
+_EXPORTED_FIELDS = (
+    "fun_name", "in_tree", "in_avals", "out_tree", "out_avals",
+    "_has_named_shardings", "_in_named_shardings", "_out_named_shardings",
+    "in_shardings_hlo", "out_shardings_hlo", "nr_devices", "platforms",
+    "ordered_effects", "unordered_effects", "disabled_safety_checks",
+    "mlir_module_serialized", "calling_convention_version",
+    "module_kept_var_idx", "uses_global_constants", "_get_vjp",
+)
+
+
+def _versions() -> dict:
+    import jax
+    import jaxlib
+
+    return {"jax": jax.__version__, "jaxlib": jaxlib.__version__}
+
+
+def _signature(exported) -> dict:
+    """The fields of a single-device jax.export.Exported besides its
+    StableHLO bytes, as JSON."""
+    if exported.ordered_effects or exported.unordered_effects:
+        raise ValueError("serving programs have no effects")
+    if exported.nr_devices != 1:
+        raise ValueError("serving artifacts are single-device programs")
+    calls = [c.is_custom_call() for c in exported.disabled_safety_checks]
+    if None in calls:
+        raise ValueError("only custom-call safety checks may be disabled")
+    return {
+        "fun_name": exported.fun_name,
+        "in_avals": [[[str(d) for d in a.shape], str(a.dtype)]
+                     for a in exported.in_avals],
+        "out_avals": [[[str(d) for d in a.shape], str(a.dtype)]
+                      for a in exported.out_avals],
+        "platforms": list(exported.platforms),
+        "disabled_custom_calls": calls,
+        "calling_convention_version": exported.calling_convention_version,
+        "module_kept_var_idx": list(exported.module_kept_var_idx),
+        "uses_global_constants": exported.uses_global_constants,
+    }
+
+
+def _exported(sig: dict, module: bytes):
+    """Rebuild the jax.export.Exported that `_signature` described."""
+    import jax
+    import numpy as np
+    from jax import export as jexport
+
+    fields = tuple(f.name for f in dataclasses.fields(jexport.Exported))
+    if fields != _EXPORTED_FIELDS:
+        raise RuntimeError(
+            f"jax {jax.__version__}'s jax.export.Exported has fields "
+            f"{fields}; this v3 artifact loader fills {_EXPORTED_FIELDS}"
+        )
+    ccv = sig["calling_convention_version"]
+    if not (jexport.minimum_supported_calling_convention_version <= ccv
+            <= jexport.maximum_supported_calling_convention_version):
+        raise ValueError(
+            f"artifact calling convention {ccv} is outside the range "
+            f"jax {jax.__version__} supports: re-export it"
+        )
+    scope = jexport.SymbolicScope()
+
+    def avals(specs):
+        return tuple(
+            jax.core.ShapedArray(
+                jexport.symbolic_shape(",".join(dims), scope=scope),
+                np.dtype(dtype),
+            )
+            for dims, dtype in specs
+        )
+
+    in_avals, out_avals = avals(sig["in_avals"]), avals(sig["out_avals"])
+    n_in, n_out = len(in_avals), len(out_avals)
+    return jexport.Exported(
+        fun_name=sig["fun_name"],
+        in_tree=jax.tree_util.tree_structure(((0,) * n_in, {})),
+        in_avals=in_avals,
+        out_tree=jax.tree_util.tree_structure((0,) * n_out),
+        out_avals=out_avals,
+        _has_named_shardings=True,
+        _in_named_shardings=(None,) * n_in,
+        _out_named_shardings=(None,) * n_out,
+        in_shardings_hlo=(None,) * n_in,
+        out_shardings_hlo=(None,) * n_out,
+        nr_devices=1,
+        platforms=tuple(sig["platforms"]),
+        ordered_effects=(),
+        unordered_effects=(),
+        disabled_safety_checks=tuple(
+            jexport.DisabledSafetyCheck.custom_call(t)
+            for t in sig["disabled_custom_calls"]
+        ),
+        mlir_module_serialized=module,
+        calling_convention_version=sig["calling_convention_version"],
+        module_kept_var_idx=tuple(sig["module_kept_var_idx"]),
+        uses_global_constants=sig["uses_global_constants"],
+        _get_vjp=None,
+    )
 
 
 def export_predictor(
@@ -53,13 +160,12 @@ def export_predictor(
         path: output file.
         max_targets: static target-slot axis baked into the program
             (the batch axis stays symbolic).
-        platforms: lowering platforms, e.g. ("tpu", "cpu"). Defaults to
-            the current backend only.
-        batch: static scan-batch size — REQUIRED for mode="fused"
-            (scans pad to the kernel's 128-lane tile inside the wire
-            layout, which shape polymorphism cannot express); the
-            exported program takes 4-D cubes and packs on device.
-            Other modes keep the symbolic batch axis and ignore this.
+        platforms: lowering platforms, e.g. ("cuda", "cpu"). Defaults
+            to the current backend only.
+        batch: static scan-batch size — REQUIRED for mode="fused" (the
+            kernel's grid is the scan batch, which shape polymorphism
+            cannot express). Other modes keep the symbolic batch axis
+            and ignore this.
 
     Returns the artifact metadata dict.
     """
@@ -72,29 +178,13 @@ def export_predictor(
     if predictor.mode == "fused":
         if batch is None:
             raise ValueError(
-                "mode='fused' exports need a static batch= (the packed "
-                "wire layout pads scans to the 128-lane tile)"
+                "mode='fused' exports need a static batch= (the "
+                "kernel's grid is the scan batch)"
             )
-        from radarml_tpu.ops.pallas_i8_score import pack_cubes_i8_device
-
-        inner = predictor._fn
-        yg = predictor._pack_y_group
-        Z = int(grid[2])
-
-        @jax.jit
-        def fn(cubes, xyz, valid):
-            ck = pack_cubes_i8_device(cubes, y_group=yg)
-            B, Bp = cubes.shape[0], ck.shape[1] // Z
-            if B != Bp:
-                xyz = jnp.pad(xyz, ((0, Bp - B), (0, 0), (0, 0)))
-                valid = jnp.pad(valid, ((0, Bp - B), (0, 0)))
-            pred, best_p, proba = inner(ck, xyz, valid)
-            return pred[:B], best_p[:B], proba[:B]
-
         b = batch
     else:
-        fn = predictor._fn
         (b,) = jexport.symbolic_shape("b")
+    fn = predictor._fn
     args = (
         jax.ShapeDtypeStruct((b,) + tuple(grid), cube_dtype),
         jax.ShapeDtypeStruct((b, max_targets, 3), jnp.float32),
@@ -103,6 +193,13 @@ def export_predictor(
     kwargs = {}
     if platforms is not None:
         kwargs["platforms"] = tuple(platforms)
+    if predictor.mode == "fused":
+        # The fused kernel is a Triton custom call, which jax.export
+        # does not promise to load in another jaxlib: such an artifact
+        # serves on the backend and JAX version that exported it.
+        kwargs["disabled_checks"] = [
+            jexport.DisabledSafetyCheck.custom_call("__gpu$xla.gpu.triton")
+        ]
     exported = jexport.export(fn, **kwargs)(*args)
     meta = {
         "format": FORMAT,
@@ -112,7 +209,9 @@ def export_predictor(
         "max_targets": int(max_targets),
         "grid_shape": tuple(int(g) for g in grid),
         "platforms": list(exported.platforms),
+        "versions": _versions(),
         **({"batch": int(batch)} if predictor.mode == "fused" else {}),
+        "exported": _signature(exported),
     }
     # Atomic replace: a ModelReloader watching `path` (train
     # --online_learn or a re-export rewrites it live) must never read
@@ -122,11 +221,11 @@ def export_predictor(
         fp.write(MAGIC)
         fp.write(json.dumps(meta).encode("utf-8"))
         fp.write(b"\n")
-        fp.write(exported.serialize())
+        fp.write(exported.mlir_module_serialized)
     os.replace(tmp, path)
     logger.info(
-        "exported serving program to %s (%s, batch symbolic, T=%d)",
-        path, meta["platforms"], max_targets,
+        "exported serving program to %s (%s, batch %s, T=%d)",
+        path, meta["platforms"], meta.get("batch", "symbolic"), max_targets,
     )
     return meta
 
@@ -197,14 +296,14 @@ def load_serving_artifact(
 ) -> ServingArtifact:
     """Load an exported predictor; no model code or weights needed.
 
-    v2 artifacts (the current format) are a JSON metadata line plus the
-    raw serialized StableHLO blob — loading never runs an unpickler, so
+    v3 artifacts (the current format) are a JSON metadata line plus the
+    portable StableHLO bytes — loading never runs an unpickler, so
     a `ModelReloader` watching the path is safe against artifact-file
     writers injecting code. Legacy v1 artifacts are pickles; loading
     one runs the unpickler (arbitrary code execution for whoever wrote
     the file), so it requires an explicit `allow_v1_pickle=True` from
     a caller who trusts the path — the reference's own trust model (an
-    sklearn pickle, predict.py:224-227). Re-export to v2 to drop the
+    sklearn pickle, predict.py:224-227). Re-export to v3 to drop the
     requirement.
     """
     from jax import export as jexport
@@ -214,21 +313,32 @@ def load_serving_artifact(
     if raw.startswith(MAGIC):
         head, _, blob = raw[len(MAGIC):].partition(b"\n")
         payload = json.loads(head.decode("utf-8"))
-        if payload.get("format") != FORMAT:
+        if payload.get("format") not in (FORMAT, FORMAT_V2):
             raise ValueError(f"not a serving export artifact: {path}")
         payload["blob"] = blob
     else:
         if not allow_v1_pickle:
             raise ValueError(
-                f"{path} is not a v2 serving artifact; if it is a "
+                f"{path} is not a v2/v3 serving artifact; if it is a "
                 "legacy v1 pickle from a TRUSTED source, pass "
                 "allow_v1_pickle=True (v1 loading executes the "
-                "unpickler) or re-export it to v2"
+                "unpickler) or re-export it"
             )
         payload = pickle.loads(raw)
         if payload.get("format") != FORMAT_V1:
             raise ValueError(f"not a serving export artifact: {path}")
-    exported = jexport.deserialize(payload["blob"])
+    if payload["format"] == FORMAT:
+        here = _versions()
+        if (payload["exported"]["disabled_custom_calls"]
+                and payload.get("versions") != here):
+            raise ValueError(
+                f"{path} holds a kernel custom call exported under "
+                f"{payload.get('versions', 'unrecorded versions')}; it "
+                f"loads only under the same jax/jaxlib ({here}): re-export"
+            )
+        exported = _exported(payload["exported"], payload["blob"])
+    else:
+        exported = jexport.deserialize(payload["blob"])
     return ServingArtifact(
         call=exported.call,
         mode=payload["mode"],

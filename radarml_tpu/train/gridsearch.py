@@ -209,7 +209,8 @@ def grid_search_sgd(
 
     With `vmap_candidates` (default), candidates sharing (penalty,
     average) train SIMULTANEOUSLY per fold via `sgd_fit_many` — the
-    TPU-idiomatic grid search: the MXU sweeps a candidate batch where
+    accelerator-idiomatic grid search: the matrix units sweep a
+    candidate batch where
     GridSearchCV runs candidates × folds sequential fits. Per-candidate
     results are identical to the sequential path (shared seed → shared
     shuffles).
@@ -279,6 +280,7 @@ def _run_grid_sgd_batched(
     ONE compiled program per group (fold sizes differ by ≤1 sample;
     the trim drops at most one training sample per fold, a negligible
     perturbation that buys a folds× reduction in compilations)."""
+    import jax
     import jax.numpy as jnp
 
     from radarml_tpu.models.linear import sgd_fit_many
@@ -325,7 +327,8 @@ def _run_grid_sgd_batched(
             Xte = jnp.take(Xd, jnp.asarray(te), axis=0)
             # (cand, n, C) decisions → per-candidate accuracy.
             dec = (
-                jnp.einsum("nf,kcf->knc", Xte, coef[f])
+                jnp.einsum("nf,kcf->knc", Xte, coef[f],
+                           precision=jax.lax.Precision.HIGHEST)
                 + intercept[f][:, None, :]
             )
             if coef.shape[2] == 1:
@@ -373,7 +376,7 @@ def grid_search_svc(
     every candidate kernel is an elementwise transform of it, and the
     SMO dual solves for all (fold × OvO-pair × C) subproblems of a
     kernel group execute as ONE vmapped `lax.while_loop` dispatch —
-    the TPU-idiomatic replacement for GridSearchCV's 150 sequential
+    the accelerator-idiomatic replacement for GridSearchCV's 150 sequential
     host fits (reference train.py:472-491, 77.5 min on the Pi-class
     CPU). Pass a `jax.sharding.Mesh` to shard the subproblem batch
     over its 'data' axis. Results match the sequential path (same
@@ -413,7 +416,7 @@ def _run_grid_svc_batched(
 
     Structure (all on device unless noted):
       1. X transfers once; G = X·Xᵀ and pairwise ‖·‖² are computed once
-         (MXU / fused Pallas RBF path in models/svc.kernel_matrix).
+         (the XLA Gram in models/svc.kernel_matrix).
       2. Candidates group by (kernel, gamma): each group's Gram K is an
          elementwise transform of the cached G/d² — no feature matmuls
          per candidate.

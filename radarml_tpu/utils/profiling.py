@@ -13,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import subprocess
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, Optional
@@ -124,3 +125,15 @@ def device_trace(log_dir: Optional[str]) -> Iterator[None]:
     with jax.profiler.trace(log_dir):
         yield
     logger.info("device trace written to %s", log_dir)
+
+
+def card_name_and_power_limit() -> str:
+    """`nvidia-smi`'s name and power limit of the GPU, e.g.
+    "NVIDIA H100 80GB HBM3, 700.00 W" — every device number is kept
+    beside it, since a card below its top power limit runs slower. A
+    child process that never touches JAX; raises if the tool fails."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()

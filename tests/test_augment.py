@@ -3,7 +3,7 @@
 The reference augments with `ndimage.rotate(reshape=False)`, a
 constant-size clipped zoom built on `ndimage.zoom`, and single-draw
 Gaussian noise (reference train.py:85-213, dnn.py:94-182). These tests
-check the batched TPU formulations against scipy ground truth computed
+check the batched JAX formulations against scipy ground truth computed
 directly in the test (fixed parameters; the random-draw policies are
 keyed-PRNG by design and are checked structurally).
 """

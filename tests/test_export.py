@@ -57,12 +57,19 @@ def test_export_roundtrip_bit_parity_and_symbolic_batch(tmp_path, predictor):
 
 
 def test_v2_container_is_pickle_free_and_v1_still_loads(tmp_path, predictor):
-    """v2 = MAGIC + JSON line + raw blob (no unpickler on load); the
-    legacy v1 pickle container keeps loading."""
+    """v3 = MAGIC + JSON line (with the program's signature) + the
+    portable StableHLO bytes (no unpickler, no flatbuffers on load); the
+    v2 container (jax.export's own serialization) and the legacy v1
+    pickle container keep loading."""
     import json
     import pickle
 
-    from radarml_tpu.serving.export import FORMAT_V1, MAGIC
+    from radarml_tpu.serving.export import (
+        FORMAT_V1,
+        FORMAT_V2,
+        MAGIC,
+        _exported,
+    )
 
     path = str(tmp_path / "serving.rmlx")
     export_predictor(predictor, path, max_targets=4)
@@ -70,7 +77,14 @@ def test_v2_container_is_pickle_free_and_v1_still_loads(tmp_path, predictor):
     assert raw.startswith(MAGIC)
     head, _, blob = raw[len(MAGIC):].partition(b"\n")
     meta = json.loads(head.decode("utf-8"))  # header is plain JSON
-    assert meta["format"].endswith(".v2")
+    assert meta["format"].endswith(".v3")
+    assert meta["exported"]["platforms"] == meta["platforms"]
+    # jax.export's serializer accepts the rebuilt program unchanged
+    blob = _exported(meta.pop("exported"), blob).serialize()
+    v2 = tmp_path / "serving_v2.rmlx"
+    with open(v2, "wb") as fp:
+        fp.write(MAGIC + json.dumps({**meta, "format": FORMAT_V2}).encode()
+                 + b"\n" + blob)
 
     # Re-wrap the same program as a legacy v1 pickle artifact: loading
     # it requires an explicit opt-in (the unpickler runs), and the
@@ -89,6 +103,10 @@ def test_v2_container_is_pickle_free_and_v1_still_loads(tmp_path, predictor):
     xyz, valid = pad_targets([[(5.0, 5.0, 100.0)]] * 3, max_targets=4)
     np.testing.assert_array_equal(
         np.asarray(load_serving_artifact(path)(cubes, xyz, valid)[0]),
+        np.asarray(art(cubes, xyz, valid)[0]),
+    )
+    np.testing.assert_array_equal(
+        np.asarray(load_serving_artifact(str(v2))(cubes, xyz, valid)[0]),
         np.asarray(art(cubes, xyz, valid)[0]),
     )
 
@@ -138,6 +156,30 @@ def test_serve_cli_export_and_artifact_serving(tmp_path, predictor):
     assert stats["processed"] > 0
 
 
+def test_cuda_and_cpu_export_serves_on_cpu(tmp_path, predictor):
+    """The serve CLI's non-fused export lowers for ("cuda", "cpu"): one
+    artifact serves on the GPU and, here, on the CPU, bit-identically
+    to the live predictor."""
+    path = str(tmp_path / "cuda_cpu.rmlx")
+    meta = export_predictor(predictor, path, max_targets=4,
+                            platforms=("cuda", "cpu"))
+    assert meta["platforms"] == ["cuda", "cpu"]
+    art = load_serving_artifact(path)
+    assert art.platforms == ("cuda", "cpu")
+
+    rng = np.random.default_rng(5)
+    cubes = np.rint(
+        rng.random((3,) + DEFAULT_ARENA.grid_shape) * 255
+    ).astype(np.float32)
+    xyz, valid = pad_targets(
+        [[(1.0 * b, -2.0, 90.0 + 3 * b)] for b in range(3)], max_targets=4
+    )
+    want = predictor(cubes, jnp.asarray(xyz), jnp.asarray(valid))
+    got = art(cubes, xyz, valid)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(w), np.asarray(g))
+
+
 def test_int8_artifact_roundtrip_and_encode_host(tmp_path, predictor):
     """An int8-stream export serves canonical f32/u8 cubes correctly:
     __call__ applies the value-128 wire encoding (a straight int8 cast
@@ -168,11 +210,13 @@ def test_int8_artifact_roundtrip_and_encode_host(tmp_path, predictor):
 
 
 def test_fused_artifact_static_batch_roundtrip(tmp_path, predictor):
-    """mode='fused' exports bake a static batch (packed wire layout)
-    and reproduce the live fused predictor bit-for-bit."""
+    """mode='fused' exports bake a static batch (the kernel's grid is
+    the scan batch) and reproduce the live fused predictor bit-for-bit."""
     import dataclasses
 
-    fused = dataclasses.replace(predictor, mode="fused", cube_dtype="float32")
+    fused = dataclasses.replace(
+        predictor, mode="fused", cube_dtype="float32", interpret=True
+    )
     path = str(tmp_path / "fused.rmlx")
     with pytest.raises(ValueError, match="static batch"):
         export_predictor(fused, path, max_targets=3)
@@ -204,3 +248,48 @@ def test_fused_artifact_static_batch_roundtrip(tmp_path, predictor):
     valid2 = np.concatenate([valid, valid])
     with pytest.raises(ValueError, match="chunks"):
         art(big, xyz2, valid2)
+
+
+def test_exported_fields_match_the_v3_loader():
+    """The v3 loader rebuilds jax.export.Exported field by field; a JAX
+    upgrade that changes those fields must fail here, not in serving."""
+    import dataclasses
+
+    from jax import export as jexport
+
+    from radarml_tpu.serving.export import _EXPORTED_FIELDS
+
+    fields = tuple(f.name for f in dataclasses.fields(jexport.Exported))
+    assert fields == _EXPORTED_FIELDS
+
+
+@pytest.mark.parametrize("mode", ["fused", "fast"])
+def test_artifact_versions_gate_kernel_artifacts(tmp_path, predictor, mode):
+    """The metadata records the exporting jax/jaxlib. A fused artifact
+    (a Triton custom call, no cross-version promise) refuses to load
+    under other versions; a plain StableHLO artifact still loads."""
+    import dataclasses
+    import json
+
+    import jaxlib
+
+    from radarml_tpu.serving.export import MAGIC
+
+    p = dataclasses.replace(predictor, mode=mode, interpret=mode == "fused")
+    path = str(tmp_path / f"{mode}.rmlx")
+    meta = export_predictor(p, path, max_targets=2, batch=2)
+    assert meta["versions"] == {"jax": jax.__version__,
+                                "jaxlib": jaxlib.__version__}
+    assert bool(meta["exported"]["disabled_custom_calls"]) == (mode == "fused")
+    load_serving_artifact(path)  # same versions: loads
+
+    head, _, blob = open(path, "rb").read()[len(MAGIC):].partition(b"\n")
+    other = {**json.loads(head), "versions": {"jax": "0.0.0",
+                                              "jaxlib": "0.0.0"}}
+    moved = tmp_path / f"{mode}_other.rmlx"
+    moved.write_bytes(MAGIC + json.dumps(other).encode() + b"\n" + blob)
+    if mode == "fused":
+        with pytest.raises(ValueError, match="re-export"):
+            load_serving_artifact(str(moved))
+    else:
+        assert load_serving_artifact(str(moved)).mode == "fast"

@@ -1,7 +1,7 @@
 """Feature-builder parity vs a reference-formula numpy oracle.
 
 Oracle re-derives common.process_samples (common.py:123-149) with
-scipy, then the batched TPU path must match to float32 tolerance.
+scipy, then the batched JAX path must match to float32 tolerance.
 """
 
 import numpy as np

@@ -1,328 +1,185 @@
-"""One-read int8 kernel (ops/pallas_i8_score) + fused predictor mode.
+"""Two-pass int8 kernel (ops/pallas_i8_score) + fused predictor mode.
 
 The kernel is exact integer arithmetic (s8 inputs, s32 accumulation),
 so parity with the fast int8 path is decision-identical by
 construction; these tests run it in interpret mode on CPU against an
-int64 numpy oracle and against mode="fast"/cube_dtype="int8".
+int64 numpy oracle and against mode="fast"/cube_dtype="int8". The
+compiled Triton kernel runs only on the card: `test_kernel_on_card`
+(marked gpu) skips here, and chip_smoke.py runs the same check there.
 """
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
-from radarml_tpu.core.arena import DEFAULT_ARENA
+from radarml_tpu.core.arena import DEFAULT_ARENA, ProjMask
 from radarml_tpu.models.linear import LinearModel, SigmoidCalibration
 from radarml_tpu.models.pipeline import RadarPredictor
+from radarml_tpu.ops import pallas_i8_score
 from radarml_tpu.ops.pallas_i8_score import (
-    build_onepass_weights,
-    onepass_tables_i8,
-    pack_cubes_i8,
+    build_table_weights,
+    tables_i8,
 )
 
 
-def test_onepass_tables_match_int64_oracle(rng):
-    X, Y, Z, C, B = 5, 7, 9, 2, 3
-    C2 = 2 * C
-    q_xz = rng.integers(-127, 128, (C2, X, Z)).astype(np.int8)
-    q_yz = rng.integers(-127, 128, (C2, Y, Z)).astype(np.int8)
-    q_xy = rng.integers(-127, 128, (C2, X, Y)).astype(np.int8)
-    quant = [(q, None, None, None) for q in (q_xz, q_yz, q_xy)]
-    w = build_onepass_weights(quant, (X, Y, Z))
-    cubes = rng.integers(0, 256, (B, X, Y, Z)).astype(np.uint8)
-    ck = pack_cubes_i8(cubes)
-    # scans pad to the lane tile; pad lanes are zero and unread
-    assert ck.shape[1] % Z == 0 and (ck.shape[1] // Z) % 128 == 0
-    m1, m2, m3 = onepass_tables_i8(ck, w, interpret=True)
-
-    v = cubes.astype(np.int64) - 128
-    o1 = np.einsum("cxz,bxyz->cyb", q_xz.astype(np.int64), v)
-    o2 = np.einsum("cyz,bxyz->cxb", q_yz.astype(np.int64), v)
-    o3 = np.einsum("cxy,bxyz->zcb", q_xy.astype(np.int64), v)
-    np.testing.assert_array_equal(
-        np.asarray(m1)[:, :Y, :B].astype(np.int64), o1
-    )
-    np.testing.assert_array_equal(np.asarray(m2)[..., :B].astype(np.int64), o2)
-    np.testing.assert_array_equal(np.asarray(m3)[..., :B].astype(np.int64), o3)
-
-    # masked planes contribute zero weights -> zero tables
-    wm = build_onepass_weights(
-        [None, (q_yz, None, None, None), None], (X, Y, Z)
-    )
-    a1, a2, a3 = onepass_tables_i8(ck, wm, interpret=True)
-    assert not np.asarray(a1).any() and not np.asarray(a3).any()
-    np.testing.assert_array_equal(np.asarray(a2)[..., :B].astype(np.int64), o2)
+def _templates(rng, X, Y, Z, C2):
+    return [
+        rng.integers(-127, 128, shape).astype(np.int8)
+        for shape in ((C2, X, Z), (C2, Y, Z), (C2, X, Y))
+    ]
 
 
-def test_onepass_tables_sel_match_int64_oracle(rng):
-    """In-kernel z-row selection == oracle z-table read at kidx.
-
-    Padded slots (kidx=-1) match no z-step and must stay zero; m1/m2
-    must be identical to the plain kernel's."""
-    from radarml_tpu.ops.pallas_i8_score import onepass_tables_sel_i8
-
-    X, Y, Z, C, B, T = 5, 7, 9, 2, 3, 2
-    C2 = 2 * C
-    q_xz = rng.integers(-127, 128, (C2, X, Z)).astype(np.int8)
-    q_yz = rng.integers(-127, 128, (C2, Y, Z)).astype(np.int8)
-    q_xy = rng.integers(-127, 128, (C2, X, Y)).astype(np.int8)
-    quant = [(q, None, None, None) for q in (q_xz, q_yz, q_xy)]
-    w = build_onepass_weights(quant, (X, Y, Z))
-    cubes = rng.integers(0, 256, (B, X, Y, Z)).astype(np.uint8)
-    ck = pack_cubes_i8(cubes)
-    kidx = rng.integers(0, Z, (B, T)).astype(np.int32)
-    kidx[0, -1] = -1  # padded target slot
-    s1, s2, d3 = onepass_tables_sel_i8(
-        ck, w, jnp.asarray(kidx), interpret=True
-    )
-    m1, m2, m3 = onepass_tables_i8(ck, w, interpret=True)
-    np.testing.assert_array_equal(np.asarray(s1), np.asarray(m1))
-    np.testing.assert_array_equal(np.asarray(s2), np.asarray(m2))
-
-    v = cubes.astype(np.int64) - 128
-    o3 = np.einsum("cxy,bxyz->zcb", q_xy.astype(np.int64), v)
-    got = np.asarray(d3).astype(np.int64)  # (C2, Tp, B)
-    for b in range(B):
-        for t in range(T):
-            want = (
-                np.zeros(C2, np.int64) if kidx[b, t] < 0
-                else o3[kidx[b, t], :, b]
-            )
-            np.testing.assert_array_equal(got[:, t, b], want)
-    # padded slot rows beyond T are zero
-    assert not got[:, T:, :].any()
-
-
-@pytest.mark.parametrize(
-    "dims,want_groups",
-    [((5, 7, 9), 1),     # X*16 unaligned → one full-Yp group
-     ((4, 35, 9), 4)],   # Yp=64, Yg=16 → 4 groups
-)
-def test_onepass_scores_match_int64_oracle(rng, dims, want_groups):
-    """Full in-kernel selection == oracle table reads at (i, j, k),
-    in both the single-group and the y-grouped layouts.
-
-    Invalid slots and the Tp pad rows must come back zero."""
-    from radarml_tpu.ops.pallas_i8_score import (
-        build_grouped_weights, onepass_scores_i8,
-    )
-
-    X, Y, Z = dims
-    C, B, T = 2, 3, 2
-    C2 = 2 * C
-    q_xz = rng.integers(-127, 128, (C2, X, Z)).astype(np.int8)
-    q_yz = rng.integers(-127, 128, (C2, Y, Z)).astype(np.int8)
-    q_xy = rng.integers(-127, 128, (C2, X, Y)).astype(np.int8)
-    quant = [(q, None, None, None) for q in (q_xz, q_yz, q_xy)]
-    w = build_grouped_weights(quant, (X, Y, Z))
-    assert w.w1.shape[1] == want_groups
-    cubes = rng.integers(0, 256, (B, X, Y, Z)).astype(np.uint8)
-    ck = pack_cubes_i8(cubes, y_group=w.y_group)
-    ijk = np.stack(
-        [rng.integers(0, X, (B, T)), rng.integers(0, Y, (B, T)),
-         rng.integers(0, Z, (B, T))], axis=-1
-    ).astype(np.int32)
-    valid = np.ones((B, T), bool)
-    valid[0, -1] = False
-    s1, s2, s3 = onepass_scores_i8(
-        ck, w, jnp.asarray(ijk), jnp.asarray(valid), interpret=True
-    )
-
-    v = cubes.astype(np.int64) - 128
-    o1 = np.einsum("cxz,bxyz->cyb", q_xz.astype(np.int64), v)
-    o2 = np.einsum("cyz,bxyz->cxb", q_yz.astype(np.int64), v)
-    o3 = np.einsum("cxy,bxyz->zcb", q_xy.astype(np.int64), v)
-    got = [np.asarray(s).astype(np.int64) for s in (s1, s2, s3)]
-    for b in range(B):
-        for t in range(T):
-            i, j, k = ijk[b, t]
-            w1v, w2v, w3v = (
-                (o1[:, j, b], o2[:, i, b], o3[k, :, b])
-                if valid[b, t] else (0, 0, 0)
-            )
-            np.testing.assert_array_equal(got[0][:, t, b], w1v)
-            np.testing.assert_array_equal(got[1][:, t, b], w2v)
-            np.testing.assert_array_equal(got[2][:, t, b], w3v)
-    for g in got:  # pad slots beyond T
-        assert not g[:, T:, :].any()
-
-
-@pytest.mark.parametrize(
-    "dims,want_groups",
-    [((5, 7, 9), 1),     # X*16 unaligned → one full-Yp group
-     ((4, 35, 9), 4)],   # Yp=64, Yg=16 → 4 groups
-)
-def test_onepass_tables_grouped_match_int64_oracle(rng, dims, want_groups):
-    """The grouped-dot tables kernel returns exactly the plain kernel's
-    (m1, m2, m3) contract — same values, same ungrouped row order — in
-    both the single-group and the y-grouped layouts."""
-    from radarml_tpu.ops.pallas_i8_score import (
-        build_grouped_weights, onepass_tables_grouped_i8,
-    )
-
-    X, Y, Z = dims
-    C, B = 2, 3
-    C2 = 2 * C
-    q_xz = rng.integers(-127, 128, (C2, X, Z)).astype(np.int8)
-    q_yz = rng.integers(-127, 128, (C2, Y, Z)).astype(np.int8)
-    q_xy = rng.integers(-127, 128, (C2, X, Y)).astype(np.int8)
-    quant = [(q, None, None, None) for q in (q_xz, q_yz, q_xy)]
-    w = build_grouped_weights(quant, (X, Y, Z))
-    assert w.w1.shape[1] == want_groups
-    cubes = rng.integers(0, 256, (B, X, Y, Z)).astype(np.uint8)
-    ck = pack_cubes_i8(cubes, y_group=w.y_group)
-    m1, m2, m3 = onepass_tables_grouped_i8(ck, w, interpret=True)
-
-    v = cubes.astype(np.int64) - 128
-    o1 = np.einsum("cxz,bxyz->cyb", q_xz.astype(np.int64), v)
-    o2 = np.einsum("cyz,bxyz->cxb", q_yz.astype(np.int64), v)
-    o3 = np.einsum("cxy,bxyz->zcb", q_xy.astype(np.int64), v)
-    np.testing.assert_array_equal(
-        np.asarray(m1)[:, :Y, :B].astype(np.int64), o1
-    )
-    np.testing.assert_array_equal(
-        np.asarray(m2)[..., :B].astype(np.int64), o2
-    )
-    np.testing.assert_array_equal(
-        np.asarray(m3)[..., :B].astype(np.int64), o3
-    )
-
-    # masked planes contribute zero weights -> zero tables
-    wm = build_grouped_weights(
-        [None, (q_yz, None, None, None), None], (X, Y, Z)
-    )
-    a1, a2, a3 = onepass_tables_grouped_i8(ck, wm, interpret=True)
-    assert not np.asarray(a1).any() and not np.asarray(a3).any()
-    np.testing.assert_array_equal(
-        np.asarray(a2)[..., :B].astype(np.int64), o2
+def _oracle(q, cubes):
+    """int64 einsums: (m1 (B,C2,Y), m2 (B,C2,X), m3 (B,C2,Z))."""
+    v = np.asarray(cubes).astype(np.int64)
+    return (
+        np.einsum("cxz,bxyz->bcy", q[0].astype(np.int64), v),
+        np.einsum("cyz,bxyz->bcx", q[1].astype(np.int64), v),
+        np.einsum("cxy,bxyz->bcz", q[2].astype(np.int64), v),
     )
 
 
 @pytest.mark.parametrize(
-    "dims,want_groups",
-    [((5, 7, 9), 1),     # X*16 unaligned → one full-Yp group
-     ((4, 35, 9), 4)],   # Yp=64, Yg=16 → 4 groups
+    "dims,C2,B",
+    [
+        ((5, 7, 9), 4, 3),        # everything below one tile
+        ((4, 16, 32), 6, 2),      # Y and Z already powers of two
+        ((6, 17, 33), 6, 4),      # Y, Z one past a power of two
+        ((3, 35, 40), 6, 1),      # Y > 32: Yp = 64; batch 1
+        ((2, 5, 200), 4, 2),      # Z > _Z_CHUNK: two z chunks
+        ((9, 12, 130), 18, 2),    # C2 > 16: padded dot rows = 32
+        ((22, 31, 176), 6, 1),    # the reference arena, batch 1
+        ((22, 31, 176), 6, 3),    # the reference arena
+        ((22, 31, 176), 2, 2),    # one class pair (C2 < 8)
+    ],
 )
-def test_onepass_tables_combined_match_int64_oracle(rng, dims, want_groups):
-    """The single-stacked-dot kernel returns exactly the plain kernel's
-    (m1, m2, m3) contract — same values, same ungrouped row order —
-    including the padded row segments staying zero."""
-    from radarml_tpu.ops.pallas_i8_score import (
-        build_combined_weights, onepass_tables_combined_i8,
-    )
-
+def test_kernel_tables_match_int64_oracle(rng, dims, C2, B):
     X, Y, Z = dims
-    C, B = 2, 3
-    C2 = 2 * C
-    q_xz = rng.integers(-127, 128, (C2, X, Z)).astype(np.int8)
-    q_yz = rng.integers(-127, 128, (C2, Y, Z)).astype(np.int8)
-    q_xy = rng.integers(-127, 128, (C2, X, Y)).astype(np.int8)
-    quant = [(q, None, None, None) for q in (q_xz, q_yz, q_xy)]
-    w = build_combined_weights(quant, (X, Y, Z))
-    assert w.wc.shape[1] == want_groups
-    r1, r2, r3 = w.row_segments
-    assert w.wc.shape[2] == r1 + r2 + r3
-    assert all(r % 8 == 0 for r in (r1, r2, r3))
-    cubes = rng.integers(0, 256, (B, X, Y, Z)).astype(np.uint8)
-    ck = pack_cubes_i8(cubes, y_group=w.y_group)
-    m1, m2, m3 = onepass_tables_combined_i8(ck, w, interpret=True)
-
-    v = cubes.astype(np.int64) - 128
-    o1 = np.einsum("cxz,bxyz->cyb", q_xz.astype(np.int64), v)
-    o2 = np.einsum("cyz,bxyz->cxb", q_yz.astype(np.int64), v)
-    o3 = np.einsum("cxy,bxyz->zcb", q_xy.astype(np.int64), v)
-    np.testing.assert_array_equal(
-        np.asarray(m1)[:, :Y, :B].astype(np.int64), o1
-    )
-    np.testing.assert_array_equal(
-        np.asarray(m2)[..., :B].astype(np.int64), o2
-    )
-    np.testing.assert_array_equal(
-        np.asarray(m3)[..., :B].astype(np.int64), o3
-    )
-
-    # masked planes contribute zero weights -> zero tables
-    wm = build_combined_weights(
-        [None, (q_yz, None, None, None), None], (X, Y, Z)
-    )
-    a1, a2, a3 = onepass_tables_combined_i8(ck, wm, interpret=True)
-    assert not np.asarray(a1).any() and not np.asarray(a3).any()
-    np.testing.assert_array_equal(
-        np.asarray(a2)[..., :B].astype(np.int64), o2
-    )
-
-    # z_chunk unrolls z-slices per grid step without changing values
-    # (benchmarks/zc_probe.py measures what the knob isolates)
-    for zc in (3, Z):
-        c1, c2, c3 = onepass_tables_combined_i8(
-            ck, w, interpret=True, z_chunk=zc
-        )
-        np.testing.assert_array_equal(np.asarray(c1), np.asarray(m1))
-        np.testing.assert_array_equal(np.asarray(c2), np.asarray(m2))
-        np.testing.assert_array_equal(np.asarray(c3), np.asarray(m3))
-    with pytest.raises(ValueError, match="z_chunk"):
-        onepass_tables_combined_i8(ck, w, interpret=True, z_chunk=4)
+    q = _templates(rng, X, Y, Z, C2)
+    w = build_table_weights([(t, None, None, None) for t in q], dims)
+    cubes = rng.integers(-128, 128, (B,) + dims).astype(np.int8)
+    got = tables_i8(jnp.asarray(cubes), w, interpret=True)
+    for g, want in zip(got, _oracle(q, cubes)):
+        assert g.dtype == jnp.int32 and g.shape == want.shape
+        np.testing.assert_array_equal(np.asarray(g).astype(np.int64), want)
 
 
-def test_combined_single_level_match_int64_oracle(rng):
-    """levels=1 CombinedWeights: C2 = C rows (half the stack), tables
-    exactly equal the einsum oracle of the single-level templates —
-    the kernel arithmetic is exact either way; only the template
-    precision differs (pipeline.fused_quant)."""
-    from radarml_tpu.ops.pallas_i8_score import (
-        build_combined_weights, onepass_tables_combined_i8,
-    )
-
-    X, Y, Z = 4, 35, 9
-    C, B = 3, 3
-    q_xz = rng.integers(-127, 128, (C, X, Z)).astype(np.int8)
-    q_yz = rng.integers(-127, 128, (C, Y, Z)).astype(np.int8)
-    q_xy = rng.integers(-127, 128, (C, X, Y)).astype(np.int8)
-    quant = [(q, None, None, None) for q in (q_xz, q_yz, q_xy)]
-    w = build_combined_weights(quant, (X, Y, Z), levels=1)
-    assert w.levels == 1 and w.dims == (X, Y, Z, C)
-    r1, r2, r3 = w.row_segments
-    # half the split stack: segments pad C (not 2C) rows to the tile
-    assert (r1, r2, r3) == (48, 16, 8)
-    assert w.wc.shape[2] == r1 + r2 + r3
-    cubes = rng.integers(0, 256, (B, X, Y, Z)).astype(np.uint8)
-    ck = pack_cubes_i8(cubes, y_group=w.y_group)
-    m1, m2, m3 = onepass_tables_combined_i8(
-        ck, w, interpret=True, z_chunk=3
-    )
-    assert m1.shape[0] == C and m2.shape[0] == C and m3.shape[1] == C
-
-    v = cubes.astype(np.int64) - 128
-    np.testing.assert_array_equal(
-        np.asarray(m1)[:, :Y, :B].astype(np.int64),
-        np.einsum("cxz,bxyz->cyb", q_xz.astype(np.int64), v),
-    )
-    np.testing.assert_array_equal(
-        np.asarray(m2)[..., :B].astype(np.int64),
-        np.einsum("cyz,bxyz->cxb", q_yz.astype(np.int64), v),
-    )
-    np.testing.assert_array_equal(
-        np.asarray(m3)[..., :B].astype(np.int64),
-        np.einsum("cxy,bxyz->zcb", q_xy.astype(np.int64), v),
-    )
-    with pytest.raises(ValueError, match="levels"):
-        build_combined_weights(quant, (X, Y, Z), levels=2)  # C odd
+@pytest.mark.parametrize("masked", [0, 1, 2])
+def test_kernel_masked_plane_is_zero(rng, masked):
+    """A masked plane (None) gets zero weights → an all-zero table; the
+    other two stay exact."""
+    dims = (5, 7, 9)
+    q = _templates(rng, *dims, 4)
+    quant = [None if i == masked else (t, None, None, None)
+             for i, t in enumerate(q)]
+    w = build_table_weights(quant, dims)
+    cubes = rng.integers(-128, 128, (2,) + dims).astype(np.int8)
+    got = tables_i8(jnp.asarray(cubes), w, interpret=True)
+    for i, (g, want) in enumerate(zip(got, _oracle(q, cubes))):
+        if i == masked:
+            assert not np.asarray(g).any()
+        else:
+            np.testing.assert_array_equal(np.asarray(g), want)
 
 
-def test_auto_z_chunk_measured_rule():
-    """auto_z_chunk encodes the zc_probe measurements: largest divisor
-    of Z ≤ 8 whose cube block stays inside the VMEM lane budget (zc·B
-    = 16384 failed the Mosaic gate on the v5e, 8192 passed; zc=16
-    measured slower than zc=8 at batch 256 despite fitting)."""
-    from radarml_tpu.ops.pallas_i8_score import auto_z_chunk
+def test_weight_layout_pads_to_triton_tiles(rng):
+    """Reference arena: C2=6 pads to 16 dot rows, Y=31 to 32, Z=176 to
+    the _Z_CHUNK multiple, the flat Y·Z axis to the _K_CHUNK multiple."""
+    dims = (22, 31, 176)
+    q = _templates(rng, *dims, 6)
+    w = build_table_weights([(t, None, None, None) for t in q], dims)
+    assert w.w1.shape == (22, 16, 256)
+    assert w.w2.shape == (16, 11 * 512)  # 31·176 = 5456 → 5632
+    assert w.w3.shape == (22, 16, 32)
+    assert w.dims == (22, 31, 176, 6)
+    # pads are zero, so padded rows and columns contribute nothing
+    assert not np.asarray(w.w1)[:, 6:].any()
+    assert not np.asarray(w.w1)[:, :, 176:].any()
+    assert not np.asarray(w.w2)[:, 31 * 176:].any()
+    assert not np.asarray(w.w3)[:, :, 31:].any()
 
-    Z = DEFAULT_ARENA.size_z  # 176
-    assert auto_z_chunk(Z, 2048) == 4    # measured +15% vs zc=1
-    assert auto_z_chunk(Z, 4096) == 2    # measured 3.89M -> 4.18M
-    assert auto_z_chunk(Z, 8192) == 1    # zc=2 would hit 16384 lanes
-    assert auto_z_chunk(Z, 256) == 8     # measured +30% vs zc=1
-    assert auto_z_chunk(7, 2048) == 1    # nothing divides a prime Z
-    assert auto_z_chunk(176, 1024) == 8  # 8·1024 == the 8192 budget
+
+def test_wrapper_rejects_bad_inputs(rng):
+    dims = (5, 7, 9)
+    q = _templates(rng, *dims, 4)
+    quant = [(t, None, None, None) for t in q]
+    w = build_table_weights(quant, dims)
+    with pytest.raises(ValueError, match="int8"):
+        tables_i8(jnp.zeros((1,) + dims, jnp.float32), w,
+                          interpret=True)
+    with pytest.raises(ValueError, match=r"\(B, 5, 7, 9\)"):
+        tables_i8(jnp.zeros((1, 5, 7, 8), jnp.int8), w,
+                          interpret=True)
+    with pytest.raises(ValueError, match="plane"):
+        build_table_weights([None, None, None], dims)
+
+
+class _SpyCall:
+    """Stands in for pl.pallas_call: records its keyword arguments and
+    returns zero tables of the declared shapes."""
+
+    def __init__(self):
+        self.kwargs = None
+
+    def __call__(self, kernel, **kwargs):
+        self.kwargs = kwargs
+
+        def run(*args):
+            return tuple(jnp.zeros(s.shape, s.dtype)
+                         for s in kwargs["out_shape"])
+
+        return run
+
+
+@pytest.fixture
+def gpu_backend(monkeypatch):
+    """A patched "gpu" backend with pallas_call replaced by a spy."""
+    spy = _SpyCall()
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(pallas_i8_score.pl, "pallas_call", spy)
+    return spy
+
+
+def test_gpu_call_names_triton_and_sets_no_interpret(rng, gpu_backend):
+    dims = (5, 7, 9)
+    q = _templates(rng, *dims, 4)
+    w = build_table_weights([(t, None, None, None) for t in q], dims)
+    tables_i8(jnp.zeros((2,) + dims, jnp.int8), w)
+    kw = gpu_backend.kwargs
+    assert kw["backend"] == "triton"
+    assert kw["interpret"] is False
+    assert kw["grid"] == (2,)
+    assert kw["name"] == "radar_i8_tables"
+
+
+def test_fused_predictor_never_derives_interpret(rng, gpu_backend):
+    """A fused predictor built without interpret=True compiles the
+    kernel for the GPU whatever the backend says — no hidden fallback
+    to the interpreter."""
+    fused = RadarPredictor(mode="fused", **_linear_fixture(rng))
+    assert fused.interpret is False
+    cubes, xyz, valid = _scan_fixture(rng, B=2, T=1)
+    fused(cubes, xyz, valid)
+    assert gpu_backend.kwargs["interpret"] is False
+    assert gpu_backend.kwargs["backend"] == "triton"
+
+
+@pytest.mark.gpu
+def test_kernel_on_card(rng):
+    """The compiled Triton kernel at the reference arena vs the oracle."""
+    try:
+        dev = jax.devices("cuda")[0]
+    except RuntimeError:
+        pytest.skip("no CUDA device (chip_smoke.py runs this on the card)")
+    dims = DEFAULT_ARENA.grid_shape
+    q = _templates(rng, *dims, 6)
+    w = build_table_weights([(t, None, None, None) for t in q], dims)
+    cubes = rng.integers(-128, 128, (64,) + dims).astype(np.int8)
+    got = tables_i8(jax.device_put(cubes, dev), w)
+    for g, want in zip(got, _oracle(q, cubes)):
+        np.testing.assert_array_equal(np.asarray(g), want)
 
 
 def _linear_fixture(rng, n_classes=3):
@@ -350,39 +207,35 @@ def _scan_fixture(rng, B=4, T=3):
     return cubes, xyz, jnp.ones((B, T), dtype=bool)
 
 
-@pytest.mark.parametrize("tail", ["lookup", "glookup", "combo", "sel", "sel3"])
-def test_fused_mode_matches_fast_int8(rng, tail):
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("T", [1, 3, 5])
+def test_fused_mode_matches_fast_int8(rng, B, T):
     """fused == fast+int8 decisions/probas (same quantized templates,
-    both exact integer table arithmetic), through both the packed and
-    the 4-D __call__ ingest paths, at a non-lane-aligned batch —
-    for every fused_tail variant."""
+    both exact integer table arithmetic) over batch × targets."""
     kw = _linear_fixture(rng)
     fast = RadarPredictor(mode="fast", cube_dtype="int8", **kw)
-    fused = RadarPredictor(mode="fused", fused_tail=tail, **kw)
+    fused = RadarPredictor(mode="fused", interpret=True, **kw)
     assert fused.cube_dtype == "int8"
-    cubes, xyz, valid = _scan_fixture(rng)
+    cubes, xyz, valid = _scan_fixture(rng, B=B, T=T)
+    valid = valid.at[0, -1].set(False)
 
     pf, bf, proba_f = fast(cubes, xyz, valid)
-    p4, b4, proba_4 = fused(cubes, xyz, valid)  # 4-D: on-device pack
-    pk, bk, proba_k = fused(fused.pack_host(cubes), xyz, valid)
-
-    np.testing.assert_array_equal(np.asarray(p4), np.asarray(pf))
+    pk, bk, proba_k = fused(cubes, xyz, valid)
     np.testing.assert_array_equal(np.asarray(pk), np.asarray(pf))
     np.testing.assert_allclose(
-        np.asarray(proba_4), np.asarray(proba_f), atol=1e-6
+        np.asarray(proba_k), np.asarray(proba_f), atol=1e-6
     )
-    np.testing.assert_array_equal(
-        np.asarray(proba_4), np.asarray(proba_k)
-    )
-    assert proba_4.shape == proba_f.shape  # padding sliced back
+    assert proba_k.shape == proba_f.shape == (B, T, 3)
+    assert int(pk[0, -1]) == -1  # invalid slot → UNKNOWN
 
 
-@pytest.mark.parametrize("tail", ["lookup", "glookup", "combo", "sel3"])
-def test_fused_mode_masked_plane(rng, tail):
-    from radarml_tpu.core.arena import ProjMask
-
+@pytest.mark.parametrize(
+    "mask",
+    [ProjMask(True, False, True), ProjMask(False, True, True),
+     ProjMask(True, True, False)],
+)
+def test_fused_mode_masked_plane(rng, mask):
     kw = _linear_fixture(rng)
-    mask = ProjMask(True, False, True)
     F = sum(
         s[0] * s[1]
         for s, keep in zip(
@@ -398,158 +251,48 @@ def test_fused_mode_masked_plane(rng, tail):
     )
     kw.update(model=model, calibration=None, proj_mask=mask)
     fast = RadarPredictor(mode="fast", cube_dtype="int8", **kw)
-    fused = RadarPredictor(mode="fused", fused_tail=tail, **kw)
+    fused = RadarPredictor(mode="fused", interpret=True, **kw)
     cubes, xyz, valid = _scan_fixture(rng)
     pf, _, proba_f = fast(cubes, xyz, valid)
-    pk, _, proba_k = fused(fused.pack_host(cubes), xyz, valid)
+    pk, _, proba_k = fused(cubes, xyz, valid)
     np.testing.assert_array_equal(np.asarray(pk), np.asarray(pf))
     np.testing.assert_allclose(
         np.asarray(proba_k), np.asarray(proba_f), atol=1e-6
     )
 
 
-@pytest.mark.parametrize("tail", ["glookup", "combo", "sel3"])
-def test_fused_mesh_matches_single_chip(rng, tail):
-    """Mesh-sharded fused serving (shard_map per-shard pack+score)
+@pytest.mark.parametrize("n_dev", [2, 4, 8])
+def test_fused_mesh_matches_single_device(rng, n_dev):
+    """Mesh-sharded fused scoring (shard_map around the kernel)
     reproduces the single-device fused path exactly."""
-    import jax
-
     kw = _linear_fixture(rng)
-    mesh = jax.make_mesh((len(jax.devices()),), ("data",))
-    single = RadarPredictor(mode="fused", fused_tail=tail, **kw)
-    sharded = RadarPredictor(mode="fused", fused_tail=tail, mesh=mesh, **kw)
-    cubes, xyz, valid = _scan_fixture(rng, B=16, T=3)
+    mesh = jax.make_mesh((n_dev,), ("data",),
+                         devices=jax.devices()[:n_dev])
+    single = RadarPredictor(mode="fused", interpret=True, **kw)
+    sharded = RadarPredictor(mode="fused", interpret=True, mesh=mesh, **kw)
+    cubes, xyz, valid = _scan_fixture(rng, B=2 * n_dev, T=2)
 
     p1, b1, pr1 = single(cubes, xyz, valid)
     p2, b2, pr2 = sharded(cubes, xyz, valid)
     np.testing.assert_array_equal(np.asarray(p2), np.asarray(p1))
     np.testing.assert_array_equal(np.asarray(pr2), np.asarray(pr1))
 
-    with pytest.raises(ValueError, match="divisible"):
-        sharded(cubes[:10], xyz[:10], valid[:10])
-    with pytest.raises(ValueError, match="per shard"):
-        sharded(single.pack_host(np.asarray(cubes)), xyz, valid)
-
-
-def test_fused_wire_layout_is_tail_independent(rng):
-    """One pack_host batch scores identically under EVERY fused_tail
-    (the wire layout is keyed on the arena, not the tail) — a batch
-    packed by one predictor can never silently mis-score on another."""
-    kw = _linear_fixture(rng)
-    cubes, xyz, valid = _scan_fixture(rng)
-    tails = ["lookup", "glookup", "combo", "sel", "sel3"]
-    preds = {t: RadarPredictor(mode="fused", fused_tail=t, **kw)
-             for t in tails}
-    packed = preds["sel3"].pack_host(cubes)  # pack ONCE
-    got = {t: preds[t](packed, xyz, valid) for t in tails}
-    for t in tails[1:]:
-        # decisions are exact-identical across tails; probabilities
-        # agree to float-summation-order (the lookup tails dequantize
-        # before the table read, sel/sel3 after — same values, ~1 ulp
-        # different accumulation order through the calibration).
-        np.testing.assert_array_equal(
-            np.asarray(got[t][0]), np.asarray(got[tails[0]][0])
-        )
-        np.testing.assert_allclose(
-            np.asarray(got[t][2]), np.asarray(got[tails[0]][2]),
-            atol=1e-6,
-        )
-    # and it matches the 4-D ingest of the first tail exactly
-    np.testing.assert_array_equal(
-        np.asarray(preds["lookup"](cubes, xyz, valid)[2]),
-        np.asarray(got["lookup"][2]),
-    )
-
-
-def test_fused_z_chunk_override(rng):
-    """fused_z_chunk pins the combo kernel's chunk (the gate's
-    fallback-ladder knob): identical results to the auto rule at
-    every valid chunk, loud errors on invalid ones."""
-    kw = _linear_fixture(rng)
-    cubes, xyz, valid = _scan_fixture(rng)
-    auto = RadarPredictor(mode="fused", fused_tail="combo", **kw)
-    packed = auto.pack_host(cubes)
-    base = auto(packed, xyz, valid)
-    for zc in (1, 2, 4):
-        pinned = RadarPredictor(
-            mode="fused", fused_tail="combo", fused_z_chunk=zc, **kw
-        )
-        got = pinned(packed, xyz, valid)
-        np.testing.assert_array_equal(np.asarray(got[0]),
-                                      np.asarray(base[0]))
-        np.testing.assert_array_equal(np.asarray(got[2]),
-                                      np.asarray(base[2]))
-    with pytest.raises(ValueError, match="divide"):
-        RadarPredictor(
-            mode="fused", fused_tail="combo", fused_z_chunk=3, **kw
-        )
-    with pytest.raises(ValueError, match="combo"):
-        RadarPredictor(
-            mode="fused", fused_tail="lookup", fused_z_chunk=2, **kw
-        )
-
-
-def test_fused_quant_single_decisions(rng):
-    """fused_quant="single" (combo tail, q1-only templates): the
-    opt-in single-M-tile-pass mode. Not bit-parity with fast+int8 —
-    the contract is (a) the stacked dot shrinks to ONE 128-row M-tile
-    pass at the default arena, (b) decisions agree with the exact-f32
-    path on every slot of the fixture, and (c) probabilities sit
-    within the coarser template error (≤ max|t|/254 per element →
-    ~1e-3-level on probas, vs the split mode's ~1e-5)."""
-    kw = _linear_fixture(rng)
-    single = RadarPredictor(
-        mode="fused", fused_tail="combo", fused_quant="single", **kw
-    )
-    # one M-tile pass: the default-arena stack is exactly 128 rows
-    from radarml_tpu.ops.pallas_i8_score import build_combined_weights
-
-    q = single._quantized_split_templates(levels=1)
-    assert all(t[2] is None for t in q if t is not None)
-    wc = build_combined_weights(
-        q, (DEFAULT_ARENA.size_x, DEFAULT_ARENA.size_y,
-            DEFAULT_ARENA.size_z),
-        y_group=single._pack_y_group, levels=1,
-    )
-    assert sum(wc.row_segments) == 128  # vs the split stack's 240
-
-    exact = RadarPredictor(mode="exact", **kw)
-    split = RadarPredictor(mode="fused", fused_tail="combo", **kw)
-    cubes, xyz, valid = _scan_fixture(rng, B=8, T=3)
-    pe, _, proba_e = exact(cubes, xyz, valid)
-    ps, _, proba_s = split(split.pack_host(cubes), xyz, valid)
-    p1, _, proba_1 = single(single.pack_host(cubes), xyz, valid)
-    np.testing.assert_array_equal(np.asarray(p1), np.asarray(pe))
-    np.testing.assert_array_equal(np.asarray(p1), np.asarray(ps))
-    # split sits at ~1e-5 of exact; single at the documented ~1e-3
-    np.testing.assert_allclose(
-        np.asarray(proba_1), np.asarray(proba_e), atol=5e-3
-    )
-    assert (
-        np.abs(np.asarray(proba_1) - np.asarray(proba_e)).max()
-        > np.abs(np.asarray(proba_s) - np.asarray(proba_e)).max()
-    )
-
-    with pytest.raises(ValueError, match="single"):
-        RadarPredictor(
-            mode="fused", fused_tail="lookup", fused_quant="single", **kw
-        )
-    with pytest.raises(ValueError, match="fused_quant"):
-        RadarPredictor(mode="fused", fused_quant="bogus", **kw)
-
 
 def test_fused_mode_validation(rng):
     kw = _linear_fixture(rng)
-    # every requested stream dtype resolves to the int8 wire format
-    # (all are lossless for 8-bit radar cubes) — the serve CLI's
-    # default bfloat16 must not crash mode=fused
+    # every requested stream dtype resolves to the int8 stream (all
+    # are lossless for 8-bit radar cubes) — the serve CLI's default
+    # bfloat16 must not crash mode=fused
     for dt in ("uint8", "bfloat16", "float32"):
         assert RadarPredictor(
             mode="fused", cube_dtype=dt, **kw
         ).cube_dtype == "int8"
-    with pytest.raises(ValueError, match="fused_tail"):
-        RadarPredictor(mode="fused", fused_tail="bogus", **kw)
-    fused = RadarPredictor(mode="fused", **kw)
-    with pytest.raises(ValueError, match="pack_host"):
-        bad = np.zeros((704, 177), np.int8)  # not a multiple of Z
-        fused(bad, jnp.zeros((1, 1, 3)), None)
+    from radarml_tpu.models.svc import SVCModel
+
+    svc = SVCModel(
+        support_vectors=jnp.zeros((2, 4)), dual_coef=jnp.zeros((1, 2)),
+        intercept=jnp.zeros((1,)), n_support=(1, 1), kernel="rbf",
+        gamma=0.1,
+    )
+    with pytest.raises(ValueError, match="linear"):
+        RadarPredictor(**{**kw, "model": svc}, mode="fused")

@@ -166,12 +166,11 @@ def test_fast_folded_mode_matches_exact(rng):
     np.testing.assert_array_equal(np.asarray(pf), np.asarray(pe))
 
 
-def test_pallas_mode_matches_exact(rng):
-    """Pallas fused kernel (interpret mode on CPU) == exact path.
+def test_fast_bfloat16_matches_exact(rng):
+    """fast mode over a bfloat16 stream == exact path.
 
     Cubes are integer-valued like the real sensor's 8-bit raw image
-    (reference predict.py:90-91): the kernel contracts the cube stream
-    in bf16, which is exact for that range (pallas_score.py docstring).
+    (reference predict.py:90-91), which bfloat16 holds exactly.
     """
     import jax.numpy as jnp
     import numpy as np
@@ -195,7 +194,7 @@ def test_pallas_mode_matches_exact(rng):
         model=model, calibration=calib, min_proba=0.5,
     )
     exact = RadarPredictor(mode="exact", **kw)
-    pallas = RadarPredictor(mode="pallas", cube_dtype="bfloat16", **kw)
+    fast = RadarPredictor(mode="fast", cube_dtype="bfloat16", **kw)
 
     B, T = 3, 2
     cubes = jnp.asarray(
@@ -207,7 +206,7 @@ def test_pallas_mode_matches_exact(rng):
     valid = jnp.ones((B, T), dtype=bool)
 
     pe, _, proba_e = exact(cubes, xyz, valid)
-    pp, _, proba_p = pallas(cubes, xyz, valid)
+    pp, _, proba_p = fast(cubes, xyz, valid)
     np.testing.assert_allclose(
         np.asarray(proba_p), np.asarray(proba_e), atol=2e-4
     )
@@ -259,7 +258,7 @@ def test_fast_bf16_ingest_matches_f32(rng):
 
 def test_fast_uint8_ingest_matches_f32(rng):
     """uint8 scan ingest (lossless for integer 0..255 radar data) ==
-    f32 fast path, and pallas mode rejects it (no Mosaic u8 path)."""
+    f32 fast path; the removed "pallas" mode is an unknown mode."""
     import jax.numpy as jnp
     import numpy as np
     import pytest
@@ -284,7 +283,7 @@ def test_fast_uint8_ingest_matches_f32(rng):
     )
     f32 = RadarPredictor(mode="fast", **kw)
     u8 = RadarPredictor(mode="fast", cube_dtype="uint8", **kw)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="unknown mode"):
         RadarPredictor(mode="pallas", cube_dtype="uint8", **kw)
 
     B, T = 4, 3
@@ -476,7 +475,7 @@ def test_fast_int8_quantized_ingest_matches_f32(rng):
     )
     f32 = RadarPredictor(mode="fast", **kw)
     i8 = RadarPredictor(mode="fast", cube_dtype="int8", **kw)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="unknown mode"):
         RadarPredictor(mode="pallas", cube_dtype="int8", **kw)
 
     B, T = 4, 3
@@ -553,3 +552,19 @@ def test_int8_ingest_exact_and_neural_modes_decode(rng):
     _, _, pa = a(cubes, xyz, valid)
     _, _, pb = b(cubes, xyz, valid)
     np.testing.assert_allclose(np.asarray(pb), np.asarray(pa), atol=1e-5)
+
+
+def test_unknown_mode_is_rejected():
+    """Removed or misspelled modes fail loudly instead of silently
+    building the exact path."""
+    import jax.numpy as jnp
+    import pytest
+
+    from radarml_tpu.models.linear import LinearModel
+
+    F = DEFAULT_ARENA.feature_length
+    model = LinearModel(coef=jnp.zeros((3, F)), intercept=jnp.zeros((3,)))
+    for mode in ("pallas", "Fast", ""):
+        with pytest.raises(ValueError, match="unknown mode"):
+            RadarPredictor(train_arena=DEFAULT_ARENA,
+                           scan_arena=DEFAULT_ARENA, model=model, mode=mode)

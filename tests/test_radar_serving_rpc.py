@@ -264,10 +264,24 @@ def test_dynamic_batching_coalesces_and_matches(served):
     fewer device batches and return the same answers as the unbatched
     server."""
     import threading
+    import time
 
     predictor, _server, plain_client = served
+
+    class HeldPredictor:
+        """The served predictor with each device call held 0.2 s, so
+        the other requests are queued while the first batch runs —
+        however fast the backend (or a warm compile cache) is."""
+
+        def __getattr__(self, name):
+            return getattr(predictor, name)
+
+        def __call__(self, *args):
+            time.sleep(0.2)
+            return predictor(*args)
+
     batched = RadarServingServer(
-        predictor, classes=["cat", "dog", "person"],
+        HeldPredictor(), classes=["cat", "dog", "person"],
         grid_shape=DEFAULT_ARENA.grid_shape,
         # One leader slot forces the other concurrent requests to
         # queue behind the first batch, so coalescing is deterministic.

@@ -84,7 +84,7 @@ def test_reloader_backs_off_on_repeated_failures(tmp_path):
     assert r.failures == len(calls)
 
 
-def test_serve_cli_hot_reload_fused_artifact(tmp_path):
+def test_serve_cli_hot_reload_fused_artifact(tmp_path, interpret_fused):
     """Hot reload of a mode='fused' AOT artifact mid-serve: the baked
     static batch must warm (batch 1 pads up inside ServingArtifact),
     the re-export replaces the file atomically, and predictions flip

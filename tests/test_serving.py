@@ -253,13 +253,11 @@ def test_streaming_narrow_ingest_matches_f32(predictor, rng_module):
     got_f32 = run(predictor)
     assert got_u8 == got_f32 and len(got_u8) == len(scans)
 
-    # fused mode streams through the same loop (canonical-u8 queue,
-    # on-device pack per batch) with identical decisions. Small scan
-    # arena: interpret-mode Pallas at the full 22x31x176 grid costs
-    # ~5 s/batch on a 1-core host and blows any reasonable stream
-    # deadline; full-arena sel3 parity is already proven shape-exactly
-    # in tests/test_pallas_i8.py and __graft_entry__.py, so the
-    # streaming leg only needs to prove the LOOP plumbing.
+    # fused mode streams through the same loop (canonical-u8 queue)
+    # with identical decisions. Small scan arena keeps the
+    # interpret-mode kernel cheap; full-arena parity is proven in
+    # tests/test_pallas_i8.py, so the streaming leg only needs to
+    # prove the LOOP plumbing.
     from radarml_tpu.core.arena import Arena
 
     small = Arena(r_max=60.0, theta_res=14.0, phi_res=10.0)  # 7x7x26
@@ -289,7 +287,7 @@ def test_streaming_narrow_ingest_matches_f32(predictor, rng_module):
     fused = RadarPredictor(
         train_arena=small, scan_arena=small, model=s_model,
         calibration=s_calib, min_proba=0.0, mode="fused",
-        fused_tail="sel3",
+        interpret=True,
     )
     # pre-compile the (max_batch, T) program so the stream's deadline
     # never races an interpret-mode compile on a loaded host

@@ -119,17 +119,19 @@ def test_own_probability_calibration_reasonable(rng):
     )
 
 
-def test_pallas_rbf_gram_matches_xla(rng):
-    """Fused RBF kernel (interpret mode on CPU) vs the XLA formulation."""
+@pytest.mark.parametrize("kind", ["rbf", "linear"])
+def test_kernel_matrix_matches_float64(rng, kind):
+    """The XLA Gram (Precision.HIGHEST) vs a float64 numpy reference."""
     import jax.numpy as jnp
 
-    from radarml_tpu.ops.pallas_rbf import rbf_gram
-
-    X = jnp.asarray(rng.normal(size=(37, 50)), jnp.float32)
-    S = jnp.asarray(rng.normal(size=(23, 50)), jnp.float32)
-    got = np.asarray(
-        rbf_gram(X, S, 0.05, tile_n=16, tile_m=16, interpret=True)
-    )
-    want = np.asarray(jsvc.kernel_matrix(X, S, "rbf", 0.05))
-    np.testing.assert_allclose(got, want, atol=1e-5)
-    assert got.shape == (37, 23)  # padding sliced away
+    X = rng.normal(size=(37, 50))
+    S = rng.normal(size=(23, 50))
+    got = np.asarray(jsvc.kernel_matrix(
+        jnp.asarray(X, jnp.float32), jnp.asarray(S, jnp.float32), kind, 0.05
+    ))
+    G = X @ S.T
+    if kind == "rbf":
+        d2 = (X * X).sum(1)[:, None] + (S * S).sum(1)[None, :] - 2.0 * G
+        G = np.exp(-0.05 * np.maximum(d2, 0.0))
+    np.testing.assert_allclose(got, G, rtol=1e-5, atol=1e-5)
+    assert got.shape == (37, 23)
